@@ -1,19 +1,19 @@
-"""gaussian_splatterer_tpu — a TPU-native (JAX/XLA/Pallas) Gaussian-splat training framework.
+"""A JAX (XLA + Pallas Triton kernels) Gaussian-splat training framework for GPUs.
 
 A from-scratch rebuild of the capabilities of osreboot/Gaussian-Splatterer
 (mesh + texture -> path-traced truth photographs -> differentiable splat
-rasterization -> per-feature SGD -> densify), re-designed for TPU:
+rasterization -> per-feature SGD -> densify):
 
 * All training state is a pytree of fixed-capacity padded arrays
   (XLA-friendly static shapes; the reference's ``capacity``/``count`` model,
   see reference src/ModelSplatsHost.h:11-21, maps directly onto padding +
   a validity count).
-* The differentiable rasterizer is tile-binned with scan-free alpha
-  compositing (cumulative log-transmittance) instead of a sequential
-  front-to-back loop — fully vectorizable on the VPU/MXU.
-* The truth "photographer" is a batched JAX path tracer (no RT cores on
-  TPU; rays are just data).
-* Multi-chip scaling is expressed with jax.sharding meshes + shard_map —
+* The differentiable rasterizer is tile-binned; one Triton program per
+  tile walks its depth-sorted splats in chunks, compositing each chunk
+  with cumulative log-transmittance.
+* The truth "photographer" is a batched JAX path tracer (rays are just
+  data).
+* Multi-GPU scaling is expressed with jax.sharding meshes + shard_map —
   data-parallel over truth cameras, splat-sharded for large models.
 
 Package layout:
@@ -29,15 +29,9 @@ Package layout:
 
 __version__ = "0.1.0"
 
-import os as _os
+from gaussian_splatterer_tpu.utils.compile_cache import enable_compile_cache
 
-# Persistent XLA compile cache by default (first Pallas compiles are slow,
-# especially through remote-device tunnels). Opt out: GSPLAT_TPU_NO_CACHE=1.
-if not _os.environ.get("GSPLAT_TPU_NO_CACHE"):
-    _os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.expanduser("~/.cache/jax_gsplat"),
-    )
+enable_compile_cache()
 
 from gaussian_splatterer_tpu.config import Project, CameraSphere, RuntimeConfig  # noqa: F401
 from gaussian_splatterer_tpu.models.splats import SplatModel, SplatModelHost  # noqa: F401

@@ -196,10 +196,7 @@ class Session:
                 )
             # binning-overflow auto-recovery at the capture cadence (capture
             # itself syncs the host, so the num_dup read is free); densify
-            # steps also check inside Trainer.train.  First step also sizes
-            # the work-list budget to the measured item count (one-time;
-            # self-guarded once train_work_cap is set).
-            self.trainer.calibrate_work_cap(metrics)
+            # steps also check inside Trainer.train.
             # fall back to every 100 iters when BOTH cadences are disabled
             # (e.g. capture-once runs) — otherwise a growing scene could
             # overflow the duplicate buffer with no check ever firing

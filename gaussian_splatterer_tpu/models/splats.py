@@ -3,7 +3,7 @@
 The reference keeps splats as SoA float arrays with an explicit
 ``capacity``/``count`` pair (src/ModelSplatsHost.h:11-21) and reuploads the
 whole model whenever the count changes (src/ModelSplatsDevice.cpp:24-40).
-On TPU we keep the same SoA layout but as a **fixed-capacity padded pytree**:
+Here we keep the same SoA layout but as a **fixed-capacity padded pytree**:
 XLA wants static shapes, so ``capacity`` is the array length and ``count``
 is a device scalar; all kernels mask on ``index < count``.  Densify then
 never reallocates — it is a masked gather/scatter within capacity.
@@ -20,16 +20,22 @@ way, so interop is unaffected.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from functools import partial
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 
-@struct.dataclass
+@partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["means", "shs", "scales", "opacities", "rotations", "count"],
+    meta_fields=["sh_degree"],
+)
+@dataclasses.dataclass(frozen=True)
 class SplatModel:
     """Fixed-capacity padded splat set (device pytree).
 
@@ -48,7 +54,11 @@ class SplatModel:
     opacities: jax.Array
     rotations: jax.Array
     count: jax.Array
-    sh_degree: int = struct.field(pytree_node=False, default=1)
+    sh_degree: int = 1  # static: part of the treedef, not a leaf
+
+    def replace(self, **changes) -> "SplatModel":
+        """Copy with the given fields changed (the model is immutable)."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def capacity(self) -> int:

@@ -1,7 +1,7 @@
-"""Tile binning: screen-space splats -> per-tile depth-ordered work lists.
+"""Tile binning: screen-space splats -> per-tile depth-ordered ranges.
 
-This is the TPU replacement for the INRIA rasterizer's duplicate-with-keys +
-GPU radix sort + per-tile ranges stages (reference call site
+This replaces the INRIA rasterizer's duplicate-with-keys + radix sort +
+per-tile ranges stages (reference call site
 src/Trainer.cu:334-360; SURVEY §2.3 pins the upstream pipeline).  Instead of
 a 64-bit (tileID|depth) radix sort we:
 
@@ -9,19 +9,16 @@ a 64-bit (tileID|depth) radix sort we:
   2. enumerate (splat, covered-tile) duplicate pairs *in depth order* into a
      fixed-capacity buffer (static shapes for XLA).  The pair -> splat
      mapping is a scatter of each splat's first-duplicate position followed
-     by a cummax — O(D) instead of a searchsorted whose 17 sequential
-     512k-wide gathers measured ~66 ms on a v5e,
+     by a cummax — O(D) instead of a D-wide searchsorted,
   3. stable-sort the pairs by tile id only — stability preserves the depth
      order within each tile, so one cheap int32 single-key sort replaces the
      packed 64-bit sort,
-  4. compute per-tile [start, end) ranges by binary search (T queries), and
-  5. flatten (tile, chunk-of-CHUNK-splats) work items into one 1-D work list
-     whose per-item block indices are scalar-prefetched by the Pallas
-     compositing kernel.
+  4. compute per-tile [start, end) ranges by binary search (T queries);
+     the compositing kernel runs one program per tile over that range.
 
 Layout rule (see SplatComponents): every per-splat/per-duplicate quantity is
-a flat vector so the data axis rides the 128-lane dimension.  Integer
-div/mod on wide vectors is done in f32 (exact below 2^24).
+a flat vector.  Integer div/mod on wide vectors is done in f32 (exact
+below 2^24).
 
 Everything here is integer bookkeeping — gradients flow only through the
 feature gather done by the caller.
@@ -40,180 +37,13 @@ from gaussian_splatterer_tpu.ops.transforms import SplatComponents
 class TileBins(NamedTuple):
     """Static-shape binning result.
 
-    D = max_dup (duplicate capacity), T = number of tiles,
-    W = work-list capacity, B = D // chunk feature blocks.
+    D = max_dup (duplicate capacity), T = number of tiles.
     """
 
     gather_idx: jax.Array  # (D,) int32 original splat id per sorted duplicate
     tile_start: jax.Array  # (T,) int32 first duplicate index of each tile
     tile_end: jax.Array  # (T,) int32 one-past-last duplicate index
-    work_tile: jax.Array  # (W,) int32 tile id per work item
-    work_block: jax.Array  # (W,) int32 feature-block index per work item
-    is_first: jax.Array  # (W,) int32 1 when item is its tile's first chunk
-    is_last: jax.Array  # (W,) int32 1 when item is its tile's last chunk
-    is_pad: jax.Array  # (W,) int32 1 for padding items (skip all compute)
-    block_first: jax.Array  # (W,) int32 1 when first item touching work_block
     num_dup: jax.Array  # () int32 total duplicates generated (may exceed D!)
-    # Gradient-reduction structure (scatter-free backward): in PRE-tile-sort
-    # (depth) order every splat's duplicates are CONTIGUOUS, so per-splat
-    # gradient sums are cumsum differences over segments — no XLA scatter
-    # (whose TPU expansion measured 19 ms/frame AND blew up compile times).
-    dup_presort: jax.Array  # (D,) int32 pre-sort position per sorted duplicate
-    seg_start: jax.Array  # (N,) int32 first presort dup of depth-ordered splat
-    seg_end: jax.Array  # (N,) int32 one-past-last (clipped to D)
-    depth_order: jax.Array  # (N,) int32 original splat id per depth slot
-
-
-def work_capacity(num_tiles: int, max_dup: int, chunk: int) -> int:
-    """Static upper bound on the work-list length: every tile contributes at
-    least one item plus at most one extra due to start-alignment, and the
-    duplicate buffer contributes at most D/chunk full chunks."""
-    return 2 * num_tiles + max_dup // chunk
-
-
-class WindowWork(NamedTuple):
-    """Work list for the WINDOW-fused train kernel: each tile's duplicate
-    segment is processed in ceil(seg/chunk) windows that start AT the
-    tile's own ``tile_start`` instead of at global chunk-aligned block
-    boundaries.  The kernel assembles each window from the two adjacent
-    aligned feature blocks with a dynamic lane roll (cheap: the feature
-    block is only (9, chunk)), so a tile whose segment merely STRADDLES a
-    block boundary no longer splits into two chunks — it stays a single
-    FUSED item (forward + residual + gradient replay in one visit).  At
-    the headline scene that boundary straddling affected ~64% of tiles
-    (4 items instead of 1), which made the work list ~2.7x longer than
-    the window count; windows cut the kernel's (pixel, splat) pair work
-    by the same factor.  Multi-window tiles keep the two-pass structure
-    (pass 1 windows, then gradient-replay windows).
-
-    W2 = 2 * work_capacity (loose static bound; work_cap budgets it)."""
-
-    work_tile: jax.Array  # (W2,) int32
-    w_start: jax.Array  # (W2,) int32 LOCAL duplicate column of the
-    # window's first element: tile_start + c * chunk (pads pinned to the
-    # last window so consecutive pads never cycle the feature buffers)
-    nvalid: jax.Array  # (W2,) int32 count of in-range window columns
-    # (tile_end - w_start clipped to [0, chunk]; 0 for pads/empty tiles)
-    is_first: jax.Array  # (W2,) 1 on the tile's first pass-1 window
-    is_last_p1: jax.Array  # (W2,) 1 on the tile's last pass-1 window
-    is_pass2: jax.Array  # (W2,) 1 during the gradient replay pass
-    is_pad: jax.Array  # (W2,) 1 for padding items
-    is_fused: jax.Array  # (W2,) 1 on single-window tiles' only item
-    slab_pos: jax.Array  # (W2,) COMPACTED output-slot id for slab-producing
-    # items (pass-2 and fused), else E (the dump slot).  Non-emitting grid
-    # steps (pads, pass-1) all target the dump slot, so the kernel's
-    # revolving gradient-slab output blocks only cycle on emitting items.
-    # E = min(work_capacity, work_cap).
-    seg_lo: jax.Array  # (E+1,) aligned feature-block id receiving the slab
-    # columns at window positions j >= chunk - (w_start % chunk); [E] is
-    # the dump segment B.  A window's gradient slab is split back onto its
-    # two covering aligned blocks by the kernel (pre-rolled + masked), and
-    # one segment_sum over (lo, hi) slabs rebuilds the dense per-duplicate
-    # gradient array.
-    seg_hi: jax.Array  # (E+1,) aligned block id for the slab's high part
-    # (block lo+1; content is exactly zero when the window's in-range
-    # columns end before the block boundary, so summing into a clamped id
-    # is harmless)
-    num_work: jax.Array  # () int32 TRUE item count — may exceed W2 when a
-    # work_cap budget clips the list (items past the budget are dropped;
-    # callers grow the budget like the max_dup overflow machinery)
-
-
-def emit_capacity(num_tiles: int, max_dup: int, chunk: int,
-                  work_cap: int | None = None) -> int:
-    """Compacted gradient-slab slot count of the window work list (the dump
-    slot is +1 on top).  SINGLE SOURCE OF TRUTH shared by
-    make_window_worklist and the frame-batched launcher
-    (raster_tiled.render_train_grads_batch): if the two computed different
-    values, frame-globalized slab slots would mis-index and dump-slot
-    garbage would silently sum into real gradient blocks."""
-    wc = work_capacity(num_tiles, max_dup, chunk)
-    w_cap2 = 2 * wc if work_cap is None else min(work_cap, 2 * wc)
-    return min(wc, w_cap2)
-
-
-def make_window_worklist(
-    tile_start: jax.Array, tile_end: jax.Array,
-    num_tiles: int, max_dup: int, chunk: int,
-    work_cap: int | None = None,
-) -> WindowWork:
-    """Build the window work list from per-tile LOCAL dup ranges.
-
-    ``work_cap`` clips the enumerated list below the sound static bound
-    2*work_capacity: the list is compact (pads are pure tail slack), and
-    every pad item still costs a kernel grid step (~1 us of sequencing
-    overhead on v5e), so a budget sized to the scene's TRUE item count
-    with modest slack directly removes that.  Soundness is preserved
-    dynamically: ``num_work`` reports the true count; when it exceeds the
-    budget the trailing items are dropped (wrong image for those tiles)
-    and the caller must grow the budget and recompile — same contract as
-    the max_dup duplicate-buffer overflow."""
-    i32 = jnp.int32
-    num_blocks = max_dup // chunk
-    seg = jnp.maximum(tile_end - tile_start, 0)
-    n_win = -(-seg // chunk)  # 0 for empty tiles (still 1 residual item)
-    fuse_tile = n_win <= 1
-    n2 = jnp.where(fuse_tile, 1, 2 * n_win)
-    w_offs = jnp.cumsum(n2)
-    w_actual = w_offs[-1]
-    w_cap2 = 2 * work_capacity(num_tiles, max_dup, chunk)
-    if work_cap is not None:
-        w_cap2 = min(work_cap, w_cap2)
-    w = jnp.arange(w_cap2, dtype=i32)
-    # wt = searchsorted(w_offs, w, 'right') as a dense count (searchsorted
-    # lowers to a slow while loop under vmap; (T, W2) fuses into the sum)
-    wt = jnp.minimum(
-        jnp.sum(w_offs[:, None] <= w[None, :], axis=0).astype(i32),
-        num_tiles - 1,
-    )
-    l = w - (w_offs - n2)[wt]
-    npass = n_win[wt]
-    fused = fuse_tile[wt]
-    is_pass2 = (~fused) & (l >= npass)
-    c = l - jnp.where(is_pass2, npass, 0)
-    pad = w >= w_actual
-    w_start = jnp.clip(tile_start[wt] + c * chunk, 0, max_dup - 1)
-    nvalid = jnp.where(pad, 0, jnp.clip(tile_end[wt] - w_start, 0, chunk))
-    is_first = (~pad) & (~fused) & (~is_pass2) & (c == 0)
-    is_last_p1 = (~pad) & (~fused) & (~is_pass2) & (c == npass - 1)
-    emits_slab = (~pad) & (is_pass2 | fused)
-    # compacted output slots: emitting items get consecutive slots, all
-    # others share the dump slot E.  Emitting items per tile =
-    # max(1, ceil(seg/chunk)) <= work_capacity's per-tile budget.
-    emit_cap = emit_capacity(num_tiles, max_dup, chunk, work_cap)
-    pos = jnp.cumsum(emits_slab.astype(i32)) - 1
-    slab_pos = jnp.where(emits_slab & (pos < emit_cap), pos, emit_cap)
-    blk = w_start // chunk
-    seg_lo = (
-        jnp.full((emit_cap + 1,), num_blocks, i32)
-        .at[slab_pos]
-        .set(jnp.where(emits_slab, blk, num_blocks), mode="drop")
-    )
-    # hi slab: aligned block blk+1, clamped in-frame.  When the window's
-    # in-range columns end at or before the block boundary the kernel's
-    # masking makes the hi slab exactly zero, so the clamped id only ever
-    # receives zeros — no content-dependent routing needed.
-    hi_blk = jnp.minimum(blk + 1, num_blocks - 1)
-    seg_hi = (
-        jnp.full((emit_cap + 1,), num_blocks, i32)
-        .at[slab_pos]
-        .set(jnp.where(emits_slab, hi_blk, num_blocks), mode="drop")
-    )
-    w_start = jnp.where(pad, max_dup - 1, w_start)  # pinned: no pad refetch
-    return WindowWork(
-        work_tile=wt,
-        w_start=w_start.astype(i32),
-        nvalid=nvalid.astype(i32),
-        is_first=is_first.astype(i32),
-        is_last_p1=is_last_p1.astype(i32),
-        is_pass2=(is_pass2 & ~pad).astype(i32),
-        is_pad=pad.astype(i32),
-        is_fused=(fused & ~pad).astype(i32),
-        slab_pos=slab_pos.astype(i32),
-        seg_lo=seg_lo.astype(i32),
-        seg_hi=seg_hi.astype(i32),
-        num_work=w_actual.astype(i32),
-    )
 
 
 class BatchBins(NamedTuple):
@@ -226,12 +56,11 @@ class BatchBins(NamedTuple):
     gather_flat: jax.Array  # (F*D,) global feature-row id per sorted dup
     presort_pos: jax.Array  # (F, D) LOCAL presort (depth) position per
     # tile-sorted dup slot — the sort key that carries per-dup gradient rows
-    # back to depth order (payload sort ≈ 5.5 ms vs 13 ms inverse-perm
-    # gather at 1M dups, measured by scripts/gather_probe.py)
+    # back to depth order (a payload sort instead of an inverse-permutation
+    # gather)
     tile_start: jax.Array  # (F, T) local dup ranges per tile
     tile_end: jax.Array  # (F, T)
-    seg_start_g: jax.Array  # (F*N,) global presort dup range per depth slot
-    seg_end_g: jax.Array  # (F*N,)
+    seg_start_g: jax.Array  # (F*N,) global presort dup start per depth slot
     inv_depth_flat: jax.Array  # (F*N,) global depth slot per original row id
     num_dup: jax.Array  # (F,) true duplicate totals (saturated, may > D)
 
@@ -242,13 +71,11 @@ def bin_splats_batch(
     height: int,
     tile: int,
     max_dup: int,
-    chunk: int,
 ) -> BatchBins:
     """Multi-frame binning with NO batched gathers/scatters.
 
     jax.vmap(bin_splats) turns the hand-tuned (K, N)[:, idx] column gathers
-    into batched gathers/scatters that XLA lowers to serial fusions
-    (measured ~25 ms each at 1M duplicates) — so the batch path flattens
+    into batched gathers/scatters — so the batch path flattens
     the frame axis into the data instead: per-frame sorts stay batched
     (fast), every lookup is ONE flat column gather, and the seed/cummax
     duplicate fill runs once over the global buffer with frame-monotone
@@ -295,8 +122,7 @@ def bin_splats_batch(
     offs_f = jnp.cumsum(ntiles.astype(jnp.float32), axis=-1)  # overflow gate
     num_dup = jnp.minimum(offs_f[:, -1], jnp.float32(2**31 - 2**8)).astype(i32)
 
-    # 4.+5. per-dup splat attributes WITHOUT the (5, F*D) gather (measured
-    # ~25 ms at 1M dups — XLA column gathers run ~7 ns/row): bit-pack each
+    # 4.+5. per-dup splat attributes WITHOUT a (5, F*D) gather: bit-pack each
     # depth-ordered splat's (spans_x, x0, y0, orig) under a monotone carrier
     # (its depth slot + 1), scatter the packed words at the splats' first-
     # duplicate positions, and fill the gaps with a batched per-frame
@@ -345,17 +171,15 @@ def bin_splats_batch(
     )  # (W, F, N); word 0 = offs_excl + 1 (its own monotone carrier)
     n_words = seeds.shape[0]
     # Seed positions are the UNGATED offs_excl: non-decreasing, so each of
-    # these f x W unrolled 1-D scatters carries indices_are_sorted=True —
-    # the batched 2-D scatter (dynamic indices, no sortedness hint) lowered
-    # to a 41 ms/step fusion at 8 frames of 1024^2.  Collisions (an empty
+    # these per-frame scatters carries indices_are_sorted=True (a batched
+    # 2-D scatter would have dynamic indices and no sortedness hint).
+    # Collisions (an empty
     # splat shares offs_excl with the NEXT non-empty one) resolve correctly
     # under max: the true owner has the highest depth slot, hence the
     # largest carrier.  Overflow starts (>= max_dup) drop via OOB; trailing
     # empty splats seed the gated slack region, which dup_valid discards.
     # One (W, D) scatter per frame — the W word rows share the frame's
-    # indices, so they ride a single scatter op's window dim (measured vs
-    # W separate 1-D scatters at 0.57 ms each: W x f of them was ~2.3
-    # ms/frame of the step)
+    # indices, so they ride a single scatter op's window dim
     rows = []
     for fr in range(f):
         rows.append(
@@ -364,8 +188,7 @@ def bin_splats_batch(
             .max(seeds[:, fr, :], mode="drop", indices_are_sorted=True)
         )
     seeded = jnp.stack(rows, axis=1).reshape(n_words, fD)
-    # barrier: keep the scatters out of the cummax fusion (a combined
-    # kCustom fusion measured 41 ms/step; separated they attribute cleanly)
+    # barrier: keep the scatters out of the cummax fusion
     seeded = jax.lax.optimization_barrier(seeded)
     filled = jax.lax.cummax(
         seeded.reshape(n_words, f, max_dup), axis=2
@@ -412,27 +235,24 @@ def bin_splats_batch(
     gather_flat = gather_2d.reshape(-1)
     pre_local_2d = dup_presort_2d - f_dups
 
-    # 7. per-frame tile ranges as COUNTS (order-independent, so they use
-    # the unsorted tids): tile_start[t] = #dups with tid < t.  Batched
-    # searchsorted lowers to a slow gather-per-pass while loop; the dense
-    # compare fuses into the reduction without materializing (T, D).
+    # 7. per-frame tile ranges: binary search of every tile id in the
+    # sorted tids (log2(D) passes of T-wide gathers; a dense (T, D)
+    # compare would cost T*D per frame)
     tids = jnp.arange(num_tiles, dtype=i32)
 
     def ranges(ts):
-        lt = jnp.sum(ts[None, :] < tids[:, None], axis=1).astype(i32)
-        le = jnp.sum(ts[None, :] <= tids[:, None], axis=1).astype(i32)
-        return lt, le
+        return (
+            jnp.searchsorted(ts, tids, side="left").astype(i32),
+            jnp.searchsorted(ts, tids, side="right").astype(i32),
+        )
 
-    tile_start, tile_end = jax.vmap(ranges)(tid_2d)
+    tile_start, tile_end = jax.vmap(ranges)(tid_s)
 
     # 8. per-depth-slot presort segments (for the scatter-free gradient
     # reduction) and the depth inverse (original row -> global depth slot)
     gate = offs_f - ntiles.astype(jnp.float32) < max_dup
     seg_start_g = (
         jnp.where(gate, jnp.clip(offs_excl, 0, max_dup), max_dup) + f_dups
-    ).reshape(-1)
-    seg_end_g = (
-        jnp.where(gate, jnp.clip(offs, 0, max_dup), max_dup) + f_dups
     ).reshape(-1)
     iota_n = jnp.arange(n, dtype=i32)[None, :] + jnp.zeros((f, 1), i32)
     _, inv_depth_2d = jax.lax.sort(
@@ -446,7 +266,6 @@ def bin_splats_batch(
         tile_start=tile_start,
         tile_end=tile_end,
         seg_start_g=seg_start_g,
-        seg_end_g=seg_end_g,
         inv_depth_flat=inv_depth_flat,
         num_dup=num_dup,
     )
@@ -478,13 +297,11 @@ def bin_splats(
     height: int,
     tile: int,
     max_dup: int,
-    chunk: int,
 ) -> TileBins:
     n = comps.mx.shape[0]
     tx_tiles = -(-width // tile)
     ty_tiles = -(-height // tile)
     num_tiles = tx_tiles * ty_tiles
-    num_blocks = max_dup // chunk
     i32 = jnp.int32
 
     # 1. depth order (invalid splats last; stable for deterministic ties)
@@ -521,9 +338,8 @@ def bin_splats(
     sid = jax.lax.cummax(seed) - 1  # (D,) in [-1, n-1]
     sid_c = jnp.maximum(sid, 0)
 
-    # ONE batched row-gather for all per-splat lookup tables: 1-D int gathers
-    # each lowered to a ~4 ms serial fusion on v5e, while a (K, N)[:, idx]
-    # gather runs at memory speed.
+    # ONE batched row-gather for all per-splat lookup tables instead of five
+    # 1-D int gathers.
     tables = jnp.stack([offs_excl, spans_x, x0, y0, order])  # (5, N)
     g = tables[:, sid_c]  # (5, D)
     oe, wdt, gx0, gy0, orig = g[0], g[1], g[2], g[3], g[4]
@@ -546,56 +362,16 @@ def bin_splats(
     tid = jnp.where(dup_valid, tyv * tx_tiles + txv, num_tiles).astype(i32)
 
     # 3. stable single-key sort by tile id (depth order preserved within
-    #    tile); carry the pre-sort position as a second payload for the
-    #    scatter-free gradient reduction
-    tid_sorted, pos_sorted, dup_presort = jax.lax.sort(
-        (tid, orig, d), num_keys=1, is_stable=True
-    )
-    gather_idx = pos_sorted
+    #    tile)
+    tid_sorted, gather_idx = jax.lax.sort((tid, orig), num_keys=1, is_stable=True)
 
     # 4. per-tile ranges
     tids = jnp.arange(num_tiles, dtype=i32)
     tile_start = jnp.searchsorted(tid_sorted, tids, side="left").astype(i32)
     tile_end = jnp.searchsorted(tid_sorted, tids, side="right").astype(i32)
-
-    # 5. flat work list (tile-major, chunk-aligned blocks, >=1 item per tile)
-    start_blk = tile_start // chunk
-    n_chunks = jnp.maximum(1, -(-tile_end // chunk) - start_blk)
-    w_offs = jnp.cumsum(n_chunks)  # inclusive
-    w_actual = w_offs[-1]
-    w_cap = work_capacity(num_tiles, max_dup, chunk)
-    w = jnp.arange(w_cap, dtype=i32)
-    wtile = jnp.minimum(
-        jnp.searchsorted(w_offs, w, side="right").astype(i32), num_tiles - 1
-    )
-    c_local = w - (w_offs - n_chunks)[wtile]
-    work_block = jnp.clip(start_blk[wtile] + c_local, 0, num_blocks - 1)
-    pad = w >= w_actual
-    is_first = (~pad) & (c_local == 0)
-    is_last = (~pad) & (c_local == n_chunks[wtile] - 1)
-    prev_block = jnp.concatenate([jnp.full((1,), -1, i32), work_block[:-1]])
-    block_first = (~pad) & (work_block != prev_block)
-
-    # per-splat duplicate segments in presort order (for the scatter-free
-    # gradient reduction); splats whose range starts past the buffer get an
-    # empty segment at D
-    gate = offs_f - ntiles.astype(jnp.float32) < max_dup
-    seg_start = jnp.where(gate, jnp.clip(offs_excl, 0, max_dup), max_dup)
-    seg_end = jnp.where(gate, jnp.clip(offs, 0, max_dup), max_dup)
-
     return TileBins(
         gather_idx=gather_idx,
         tile_start=tile_start,
         tile_end=tile_end,
-        work_tile=wtile,
-        work_block=work_block.astype(i32),
-        is_first=is_first.astype(i32),
-        is_last=is_last.astype(i32),
-        is_pad=pad.astype(i32),
-        block_first=block_first.astype(i32),
         num_dup=total.astype(i32),
-        dup_presort=dup_presort,
-        seg_start=seg_start.astype(i32),
-        seg_end=seg_end.astype(i32),
-        depth_order=order,
     )

@@ -3,8 +3,7 @@
 Every pixel evaluates every splat (depth-sorted), so this is the numerical
 ground truth for the tiled fast path (BASELINE config 1: "1k splats,
 256x256, CPU, allclose").  It replaces the sequential front-to-back alpha
-loop of a CUDA rasterizer with a **scan-free** formulation that maps onto
-TPU vector units:
+loop of a CUDA rasterizer with a **scan-free** formulation in plain jnp:
 
     T_k   = prod_{j<k} (1 - a_j)       == exp(cumsum(log1p(-a)))
     out   = sum_k  c_k * a_k * T_k  +  bg * T_final
@@ -40,8 +39,20 @@ def composite_pixels(
     background: jax.Array,  # (3,)
     tile_cull: int = 0,
 ) -> jax.Array:
-    """Alpha-composite all splats into P pixels. Splats MUST be sorted
-    front-to-back (ascending depth) with invalid entries pushed to the end.
+    """Alpha-composite all splats into P pixels over ``background``; see
+    composite_pixels_ct."""
+    color, t_final = composite_pixels_ct(pix_xy, splats, tile_cull)
+    return color + t_final[:, None] * background[None, :]
+
+
+def composite_pixels_ct(
+    pix_xy: jax.Array,  # (P, 2) float pixel coordinates
+    splats: ProjectedSplats,  # depth-sorted, padded
+    tile_cull: int = 0,
+):
+    """(P, 3) composited colour and (P,) final transmittance of P pixels.
+    Splats MUST be sorted front-to-back (ascending depth) with invalid
+    entries pushed to the end.
 
     ``tile_cull > 0`` emulates the tile-granular splat cutoff of the binned
     fast path (a splat only touches pixels whose tile intersects its
@@ -84,9 +95,10 @@ def composite_pixels(
     cum = jnp.cumsum(logs_eff, axis=1)
     t_excl_eff = jnp.exp(cum - logs_eff)
     w = a_eff * t_excl_eff  # (P, N)
-    color = w @ splats.color  # (P, 3)
+    # full f32 even where the default matmul precision is TF32
+    color = jnp.dot(w, splats.color, precision=jax.lax.Precision.HIGHEST)
     t_final = jnp.exp(cum[:, -1])
-    return color + t_final[:, None] * background[None, :]
+    return color, t_final
 
 
 def sort_splats_front_to_back(splats: ProjectedSplats) -> ProjectedSplats:
@@ -158,3 +170,57 @@ def render_oracle_model(model, camera, width, height, background, scale_mod=1.0,
         tan_fovx, tan_fovy, width, height, background, model.sh_degree, scale_mod,
         row_chunk=row_chunk,
     )
+
+
+def composite_tiles_reference(
+    feat9,  # (9, D) duplicate features, rows [mx, my, ca, cb, cc, r, g, b, op]
+    tile_start,  # (T,) global first duplicate of each tile
+    tile_end,  # (T,) one past its last
+    *,
+    tile: int,
+    tx_tiles: int,
+    tiles_frame: int,
+    depth: int,
+    batch: int = 64,
+):
+    """Plain-jnp tiled compositor with the compositing kernels' interface:
+    every tile composites its own depth-ordered segment, padded to a static
+    ``depth`` (segments longer than ``depth`` are cut, so pass at least the
+    deepest tile's length).  Returns (T, 4, P) rows [r, g, b, T_final].
+
+    The per-tile math is composite_pixels' exact front-to-back form, so
+    this is both the kernels' numerical reference at real segment depths
+    and what XLA alone makes of the compositing stage (its gradient w.r.t.
+    ``feat9`` comes from jax autodiff)."""
+    num_tiles = tile_start.shape[0]
+    p = jnp.arange(tile * tile, dtype=jnp.int32)
+    lane = jnp.arange(depth, dtype=jnp.int32)
+    pad = -num_tiles % batch
+
+    def one_tile(t, start, end):
+        t_img = t % tiles_frame
+        px = ((t_img % tx_tiles) * tile + p % tile).astype(jnp.float32)
+        py = ((t_img // tx_tiles) * tile + p // tile).astype(jnp.float32)
+        idx = start + lane
+        ok = idx < end
+        f = feat9[:, jnp.clip(idx, 0, feat9.shape[1] - 1)]
+        splats = ProjectedSplats(
+            mean2d=f[0:2].T, conic=f[2:5].T, color=f[5:8].T, opacity=f[8],
+            depth=jnp.zeros((depth,), jnp.float32),
+            radius=jnp.zeros((depth,), jnp.float32),
+            rx=jnp.zeros((depth,), jnp.float32),
+            ry=jnp.zeros((depth,), jnp.float32), valid=ok,
+        )
+        rgb, t_fin = composite_pixels_ct(jnp.stack([px, py], axis=-1), splats)
+        return jnp.concatenate([rgb.T, t_fin[None, :]], axis=0)  # (4, P)
+
+    ts = jnp.concatenate([tile_start, jnp.zeros((pad,), tile_start.dtype)])
+    te = jnp.concatenate([tile_end, jnp.zeros((pad,), tile_end.dtype)])
+    ids = jnp.arange(num_tiles + pad, dtype=jnp.int32)
+    # rematerialized per batch: a gradient through the map then keeps one
+    # batch of (P, depth) intermediates alive, not all of them
+    out = jax.lax.map(
+        jax.checkpoint(lambda xs: jax.vmap(one_tile)(*xs)),
+        (ids.reshape(-1, batch), ts.reshape(-1, batch), te.reshape(-1, batch)),
+    )
+    return out.reshape(num_tiles + pad, 4, tile * tile)[:num_tiles]

@@ -132,10 +132,9 @@ class ProjectedSplats(NamedTuple):
 class SplatComponents(NamedTuple):
     """Component-wise (structure-of-(N,)-vectors) screen-space splats.
 
-    TPU layout note: every field is a flat (N,) vector so the splat axis
-    lands on the 128-lane dimension.  (N, 3)-shaped intermediates would put
-    the *feature* axis on lanes (3/128 utilization) — measured ~30x slower
-    for the whole preprocess stage.
+    Layout note: every field is a flat (N,) vector so the splat axis is the
+    contiguous one; (N, 3)-shaped intermediates would make every
+    elementwise op stride over the small feature axis.
     """
 
     mx: jax.Array  # pixel x
@@ -216,8 +215,7 @@ def project_splat_components(
     """The per-splat 'preprocess' stage: 3D gaussians -> 2D screen splats.
 
     All math is written on flat (N,) component vectors (see SplatComponents)
-    so the VPU sees fully-populated 8x128 tiles; XLA fuses the whole stage
-    into a few kernels.
+    so XLA fuses the whole stage into a few elementwise kernels.
 
     ``aa=True`` enables mip-splatting-style anti-aliasing (Yu et al. 2023,
     public method; BEYOND reference parity — the reference renders the raw

@@ -58,14 +58,14 @@ __all__ = [
 
 def init_distributed(**kwargs) -> int:
     """Initialize multi-host JAX (the reference has no distributed backend
-    at all — SURVEY §2.4; this is our NCCL/MPI equivalent, riding ICI within
-    a slice and DCN across slices).  Returns the global device count.
+    at all — SURVEY §2.4; this is our NCCL/MPI equivalent).  Returns the
+    global device count.
 
     Call once per host before building meshes.  jax.distributed.initialize
     runs when (a) explicit kwargs are given (coordinator address /
     num_processes / process_id — the 2-process simulation and manual
     setups), or (b) a recognized multi-host environment is detected
-    (JAX/Cloud-TPU coordinator env vars).  Otherwise single-process: the
+    (JAX coordinator env vars).  Otherwise single-process: the
     local device count is returned unchanged.  On managed multi-host
     deployments WITHOUT those env vars, pass the coordinator kwargs
     explicitly — guessing wrong here would silently train N disconnected
@@ -80,8 +80,6 @@ def init_distributed(**kwargs) -> int:
         for k in (
             "JAX_COORDINATOR_ADDRESS",
             "COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-            "TPU_WORKER_HOSTNAMES",
         )
     ) or int(os.environ.get("JAX_NUM_PROCESSES", "1")) > 1
     if kwargs or multi_host_env:

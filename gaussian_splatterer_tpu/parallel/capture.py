@@ -1,16 +1,11 @@
-"""Camera-data-parallel truth capture: shard the path tracer over chips.
+"""Camera-data-parallel truth capture: shard the path tracer over devices.
 
 The reference re-captures all truth views every ``intervalCapture=50``
 iterations live (src/ui/UiFrame.cpp:283-298) because OptiX RT cores make
-a capture cheap.  On TPU the tracer is ~6 s per 32-sample 1024² camera
-(PERF.md round 4), and on ONE chip that device time cannot hide behind
-training — the chip executes one program at a time, so "async capture"
-only buys back host latency, not the ~90 s a 16-frame recapture holds
-the device (measured, staged-repro round 4b).  The TPU-native answer is
-the same as for training: captures are embarrassingly parallel over
-cameras, so shard them over a camera mesh — an 8-chip slice recaptures
-8x faster, which by itself takes the reference-cadence capture fraction
-from ~50% of wall time to ~10%.
+a capture cheap.  Here the tracer is plain XLA, and on one device its time
+cannot hide behind training.  Captures are embarrassingly parallel over
+cameras, so they shard over a camera mesh like training does: N devices
+recapture N times faster.
 
 ``capture_images_sharded`` renders 2C frames (every camera against white
 AND black backgrounds — the dual-background supervision of

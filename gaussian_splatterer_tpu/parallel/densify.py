@@ -3,10 +3,10 @@
 The reference densifies on the HOST every ``intervalDensify=200``
 iterations (src/Trainer.cu:433-542) — i.e. densification is already a
 gather-to-one-place operation at a slow cadence in the reference design.
-The TPU-native equivalent for splat-sharded models (fsdp / mesh3 /
-routed3) keeps that shape: all-gather the shard-resident parameters to a
-replicated copy (one fused ICI all-gather, ~50 MB at 1M splats — cheap at
-a 200-step cadence), run the exact single-device ``densify`` transform
+The equivalent for splat-sharded models (fsdp / mesh3 / routed3) keeps
+that shape: all-gather the shard-resident parameters to a replicated copy
+(one fused all-gather, ~50 MB at 1M splats — cheap at a 200-step
+cadence), run the exact single-device ``densify`` transform
 (train/densify.py, itself a jitted scatter-free gather program), and
 re-shard the result with the caller's model sharder.
 

@@ -1,19 +1,19 @@
 """Data parallelism over truth cameras: shard_map + psum over the mesh.
 
-The reference is strictly single-GPU (SURVEY §2.4) — this is new capability,
-designed TPU-first: truth frames are embarrassingly parallel (the reference
-proves order doesn't matter because gradients are averaged over all frames,
+The reference is strictly single-GPU (SURVEY §2.4) — this is new capability:
+truth frames are embarrassingly parallel (the reference proves order
+doesn't matter because gradients are averaged over all frames,
 src/Trainer.cu:416-419), so we shard the frame axis across a ``('camera',)``
-device mesh.  Each device runs its local frames through the FUSED
-frame-batched Pallas train kernel (ops.raster_tiled.render_train_grads_batch
-— the same fast path the single-chip Trainer uses), the per-splat gradient
-sums are ``psum``-reduced over ICI, and every device applies the identical
-SGD update to its replicated model copy.
+device mesh.  Each device runs its local frames through the frame-batched
+train core (ops.raster_tiled.render_train_grads_batch — the same fast path
+the single-device Trainer uses), the per-splat gradient sums are
+``psum``-reduced, and every device applies the identical SGD update to its
+replicated model copy.
 
 Scaling model (How-to-Scale-Your-Model recipe): pick the mesh, annotate
 shardings, let XLA place the collectives.  The psum payload is one gradient
 set (capacity x ~23 floats) per step — at 50k splats that's ~4.6 MB, far
-below ICI bandwidth at any realistic step time; scaling efficiency is
+below interconnect bandwidth at any realistic step time; scaling efficiency is
 gated by per-device frame count balance, so keep 2F divisible by the mesh
 size.
 
@@ -74,12 +74,12 @@ def make_local_accumulate(
     (g_sum, var_sum, loss_sum, num_dup) of SUMS over the local frames
     (num_dup = local max binning duplicates; -1 off the fused path).
 
-    ``fused=None`` auto-selects the fused frame-batched Pallas kernel
+    ``fused=None`` auto-selects the fused frame-batched train core
     whenever the tiled renderer with default render_fn is in play and the
     resolution is tile-aligned — the same fast path as the single-chip
     Trainer.  The fused path consumes PRE-TILED channel-major truths
-    (F, T, 8, P) built with ops.raster_tiled.image_to_tiles_cm."""
-    tile = runtime.tile_px if runtime is not None else 32
+    (F, T, 4, P) built with ops.raster_tiled.image_to_tiles_cm."""
+    tile = runtime.tile_px if runtime is not None else RuntimeConfig.tile_px
     if fused is None:
         fused = (
             renderer == "tiled"
@@ -89,19 +89,10 @@ def make_local_accumulate(
         )
     if fused:
         from gaussian_splatterer_tpu.ops.raster_tiled import (
-            max_frame_group,
             render_train_grads_batch,
         )
 
         fkw = _fused_kw(runtime)
-        # scalar-prefetch arrays live in 1 MB SMEM: cap the group size
-        frame_group = min(
-            frame_group,
-            max_frame_group(
-                width, height, fkw.get("tile", 32),
-                fkw.get("max_dup", 2**18), fkw.get("chunk", 128),
-            ),
-        )
 
         def local_accumulate(params, active, capacity, truths, cams, bgs):
             n_local = truths.shape[0]
@@ -113,9 +104,9 @@ def make_local_accumulate(
             )
 
             def group_fn(carry, xg):
-                g_sum, var_sum, loss_sum, ndup, nwork = carry
+                g_sum, var_sum, loss_sum, ndup = carry
                 truth_g, view_g, pv_g, pos_g, tx_g, ty_g, bg_g = xg
-                l_sum, g, v, _, nd, nw = render_train_grads_batch(
+                l_sum, g, v, _, nd = render_train_grads_batch(
                     *params, active, view_g, pv_g, pos_g, tx_g, ty_g,
                     width, height, truth_g, bg_g, sh_degree, **fkw,
                 )
@@ -124,7 +115,6 @@ def make_local_accumulate(
                     var_sum + v,
                     loss_sum + l_sum,
                     jnp.maximum(ndup, nd),
-                    jnp.maximum(nwork, nw),
                 ), None
 
             init = (
@@ -132,20 +122,14 @@ def make_local_accumulate(
                 jnp.zeros((capacity,), jnp.float32),
                 jnp.float32(0.0),
                 jnp.int32(0),
-                jnp.int32(0),
             )
             if n_local // group == 1:
                 # single group: skip lax.scan — its xs dynamic-slice copies
-                # the whole local truth batch every step (trainer.py,
-                # measured 12 ms at 8 frames/1024^2)
-                (g_sum, var_sum, loss_sum, num_dup, num_work), _ = group_fn(
-                    init, jax.tree.map(lambda x: x[0], xs)
-                )
+                # the whole local truth batch every step
+                out, _ = group_fn(init, jax.tree.map(lambda x: x[0], xs))
             else:
-                (g_sum, var_sum, loss_sum, num_dup, num_work), _ = jax.lax.scan(
-                    group_fn, init, xs
-                )
-            return g_sum, var_sum, loss_sum, num_dup, num_work
+                out, _ = jax.lax.scan(group_fn, init, xs)
+            return out
 
         return local_accumulate, True
 
@@ -184,7 +168,7 @@ def make_local_accumulate(
             (truths, cams.view, cams.proj_view, cams.cam_pos,
              cams.tan_fovx, cams.tan_fovy, bgs),
         )
-        return g_sum, var_sum, loss_sum, jnp.int32(-1), jnp.int32(-1)
+        return g_sum, var_sum, loss_sum, jnp.int32(-1)
 
     return local_accumulate, False
 
@@ -207,7 +191,7 @@ def make_dp_train_step(
     frames first, then black (src/Trainer.cu:311-314).  Model and learning
     rates are replicated; only the frame axis is sharded.  On the fused
     fast path (default for the tiled renderer) truths must be PRE-TILED
-    channel-major to (2F, T, 8, tile*tile) with
+    channel-major to (2F, T, 4, tile*tile) with
     ops.raster_tiled.image_to_tiles_cm; pass
     ``fused=False`` to train on (2F, H, W, 3) images with a custom
     render_fn.  ``runtime`` threads tile_px / max_dup / etc. into the
@@ -228,15 +212,14 @@ def make_dp_train_step(
     def step_sharded(model, truths, cams, bgs, lrs):
         params = (model.means, model.shs, model.scales, model.opacities,
                   model.rotations)
-        g_sum, var_sum, loss_sum, num_dup, num_work = local_accumulate(
+        g_sum, var_sum, loss_sum, num_dup = local_accumulate(
             params, model.active_mask(), model.capacity, truths, cams, bgs
         )
-        # single fused all-reduce over ICI for every gradient tensor
+        # single fused all-reduce for every gradient tensor
         g_sum, var_sum, loss_sum = jax.lax.psum(
             (g_sum, var_sum, loss_sum), CAMERA_AXIS
         )
         num_dup = jax.lax.pmax(num_dup, CAMERA_AXIS)
-        num_work = jax.lax.pmax(num_work, CAMERA_AXIS)
         samples = jnp.float32(truths.shape[0] * n_dev)
         g_means, g_shs, g_scales, g_opac, g_rot = jax.tree.map(
             lambda g: g / samples, g_sum
@@ -250,7 +233,7 @@ def make_dp_train_step(
         )
         metrics = TrainMetrics(
             loss=loss_sum / samples, var_loc=var_sum / samples,
-            avg_grad_loc=g_means, num_dup=num_dup, num_work=num_work,
+            avg_grad_loc=g_means, num_dup=num_dup,
         )
         return new_model, metrics
 

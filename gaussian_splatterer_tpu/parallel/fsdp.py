@@ -6,16 +6,16 @@ ZeRO-3 style), every device trains on its own shard of the truth frames
 (both mesh axes act as data parallelism), and each step:
 
   1. all-gathers the splat parameters over the ``splat`` axis (one fused
-     ICI all-gather; ~50 MB at 1M splats),
-  2. runs the local frames through the FUSED frame-batched Pallas train
-     kernel (the same fast path as the single-chip Trainer),
+     all-gather; ~50 MB at 1M splats),
+  2. runs the local frames through the frame-batched train core (the same
+     fast path as the single-device Trainer),
   3. reduce-scatters the parameter gradients over ``splat`` (so each device
      only materializes its shard's gradient sum) and psums over ``camera``,
   4. applies the SGD update to its local shard only.
 
 Rest-state memory per device is capacity/num_splat_shards splats; the
-transient full-parameter copy during the step bounds scaling at ~10M splats
-per v5e chip — past that, binning itself must go distributed (future work).
+transient full-parameter copy during the step bounds scaling by device
+memory — past that, binning itself must go distributed (routed3.py).
 
 Densify runs on gathered state between steps (host-driven, same cadence as
 the reference's CPU densify).
@@ -108,7 +108,7 @@ def make_fsdp_train_step(
     )
     metric_specs = TrainMetrics(
         loss=P(), var_loc=P(SPLAT_AXIS), avg_grad_loc=P(SPLAT_AXIS),
-        num_dup=P(), num_work=P(),
+        num_dup=P(),
     )
 
     @partial(
@@ -125,7 +125,7 @@ def make_fsdp_train_step(
         check_vma=False,
     )
     def step_sharded(model_shard, truths, cams, bgs, lrs):
-        # 1. materialize full parameters: one fused all-gather over ICI
+        # 1. materialize full parameters: one fused all-gather
         full = jax.tree.map(
             lambda x: (
                 jax.lax.all_gather(x, SPLAT_AXIS, tiled=True)
@@ -136,11 +136,10 @@ def make_fsdp_train_step(
         )
         params = (full.means, full.shs, full.scales, full.opacities,
                   full.rotations)
-        g_sum, var_sum, loss_sum, num_dup, num_work = local_accumulate(
+        g_sum, var_sum, loss_sum, num_dup = local_accumulate(
             params, full.active_mask(), full.capacity, truths, cams, bgs
         )
         num_dup = jax.lax.pmax(num_dup, (CAMERA_AXIS, SPLAT_AXIS))
-        num_work = jax.lax.pmax(num_work, (CAMERA_AXIS, SPLAT_AXIS))
 
         # 2. gradient reduction: reduce-scatter over the splat axis keeps
         #    only the local shard's gradients, then psum over cameras
@@ -174,7 +173,6 @@ def make_fsdp_train_step(
             var_loc=var_shard / samples,
             avg_grad_loc=g_means,
             num_dup=num_dup,
-            num_work=num_work,
         )
         return new_shard, metrics
 

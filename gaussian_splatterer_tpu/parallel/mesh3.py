@@ -1,8 +1,8 @@
 """Full 3-axis sharding: camera DP x image bands x splat-sharded params.
 
 Composes the three parallel axes this framework implements (SURVEY §2.4 /
-§5) on ONE mesh, so a pod slice can scale along whichever resource is
-scarce:
+§5) on ONE mesh, so a multi-device run can scale along whichever
+resource is scarce:
 
   * ``camera`` — truth frames are data-parallel (parallel/dp.py),
   * ``tile``   — each device rasterizes a horizontal band of its frames
@@ -88,10 +88,8 @@ def make_3d_train_step(
     pre-tiled channel-major with frames over 'camera' and tile ROWS over
     'tile' (shard_truths_3d).  2F must divide the camera axis; the tile-row
     count must divide the tile axis.  Fused tiled path only."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import max_frame_group
-
     fkw = _fused_kw(runtime)
-    tile = fkw.get("tile", 32)
+    tile = fkw.get("tile", RuntimeConfig.tile_px)
     n_cam_ax = mesh.shape[CAMERA_AXIS]
     n_band = mesh.shape[TILE_AXIS]
     ty_tiles = -(-height // tile)
@@ -99,13 +97,6 @@ def make_3d_train_step(
         f"tile rows ({ty_tiles}) must divide evenly into {n_band} bands"
     )
     band_h = (ty_tiles // n_band) * tile
-    frame_group = min(
-        frame_group,
-        max_frame_group(
-            width, height, tile, fkw.get("max_dup", 2**18),
-            fkw.get("chunk", 128),
-        ),
-    )
 
     n_splat = mesh.shape[SPLAT_AXIS]
     model_specs = SplatModel(
@@ -115,7 +106,7 @@ def make_3d_train_step(
     )
     metric_specs = TrainMetrics(
         loss=P(), var_loc=P(SPLAT_AXIS), avg_grad_loc=P(SPLAT_AXIS),
-        num_dup=P(), num_work=P(),
+        num_dup=P(),
     )
 
     local_accumulate = make_band_accumulate(
@@ -136,7 +127,7 @@ def make_3d_train_step(
         check_vma=False,
     )
     def step_sharded(model_shard, truths, cams, bgs, lrs):
-        # 1. materialize full parameters over ICI (fsdp.py pattern)
+        # 1. materialize full parameters (fsdp.py pattern)
         full = jax.tree.map(
             lambda x: (
                 jax.lax.all_gather(x, SPLAT_AXIS, tiled=True)
@@ -147,11 +138,10 @@ def make_3d_train_step(
         )
         params = (full.means, full.shs, full.scales, full.opacities,
                   full.rotations)
-        g_sum, var_sum, loss_sum, num_dup, num_work = local_accumulate(
+        g_sum, var_sum, loss_sum, num_dup = local_accumulate(
             params, full.active_mask(), full.capacity, truths, cams, bgs
         )
         num_dup = jax.lax.pmax(num_dup, (CAMERA_AXIS, TILE_AXIS, SPLAT_AXIS))
-        num_work = jax.lax.pmax(num_work, (CAMERA_AXIS, TILE_AXIS, SPLAT_AXIS))
 
         # 2. means/variance were tile-reduced in the scan; the rest still
         #    carries band partials.  reduce-scatter over 'splat' first so
@@ -194,7 +184,6 @@ def make_3d_train_step(
             var_loc=var_shard / samples,
             avg_grad_loc=g_means,
             num_dup=num_dup,
-            num_work=num_work,
         )
         return new_shard, metrics
 

@@ -1,9 +1,9 @@
 """Data-dependent record routing across mesh shards (ragged all-to-all).
 
-The missing primitive for SUB-TRANSIENT distributed binning (NEXT.md #4 /
-VERDICT r3 missing #4): today ``parallel/mesh3.py`` shards splat
-parameters at rest but all-gathers the full (9, N) projected rows
-transiently every step — fine to ~10M splats per chip, a wall past it.
+The missing primitive for SUB-TRANSIENT distributed binning: today
+``parallel/mesh3.py`` shards splat parameters at rest but all-gathers the
+full (9, N) projected rows transiently every step — bounded by device
+memory.
 The fix is to route each (splat, tile) DUPLICATE from the splat shard
 that projects it to the tile/band shard that composites it, so no device
 ever materializes the full model:
@@ -17,13 +17,12 @@ ever materializes the full model:
        duplicate list (post-routing size: ~D/S_tile per device, not N)
     5. local binning sort + the band kernel proceed unchanged
 
-TPU constraints shape the design: ``jax.lax.all_to_all`` exchanges
-EQUAL-SIZED blocks only, and scatters are poison (PERF.md).  So the
-ragged exchange is emulated with fixed-capacity per-destination buckets
-built scatter-free (sort by destination + rank arithmetic + one column
+``jax.lax.all_to_all`` exchanges EQUAL-SIZED blocks only, so the ragged
+exchange is emulated with fixed-capacity per-destination buckets built
+scatter-free (sort by destination + rank arithmetic + one column
 gather), exchanged with one dense all_to_all, and overflow is DETECTED
 rather than prevented — the caller grows the bucket capacity and
-recompiles, exactly the max_dup / work_cap contract
+recompiles, exactly the max_dup overflow contract
 (trainer.maybe_grow_dup_buffer).
 
 Capacity math: with D duplicates per frame spread over S destination
@@ -118,7 +117,7 @@ def unbucket_local(dst: jax.Array, buckets: jax.Array, cap: int) -> jax.Array:
 def route_back(dst: jax.Array, grads_recv: jax.Array, cap: int,
                axis_name: str) -> jax.Array:
     """Return per-record values to their senders: the inverse exchange of
-    bucket_route (the gradient-slab return route, NEXT.md round-4 #5).
+    bucket_route (the gradient return route of parallel/routed3.py).
 
     ``grads_recv`` (n_src, K, cap) must be laid out like bucket_route's
     ``recv`` on the receiver — grads_recv[s] holds values for the records

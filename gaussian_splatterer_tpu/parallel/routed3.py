@@ -1,10 +1,9 @@
 """Sub-transient 3-axis sharding: routed duplicates, NO parameter gather.
 
 The standard 3-axis step (parallel/mesh3.py) shards splat parameters at
-rest but transiently all-gathers the full model every step — fine to
-~10M splats per chip, a hard wall past it (fsdp.py docstring).  This
-module is the sub-transient design (NEXT.md round-4 #5, VERDICT r3
-missing #4): every device only ever touches
+rest but transiently all-gathers the full model every step — bounded by
+one device's memory (fsdp.py docstring).  This module is the
+sub-transient design: every device only ever touches
 
   * its OWN parameter shard (N / S splats), and
   * the projected ROWS of splats that actually land on its image band
@@ -91,7 +90,7 @@ class RouteStats(NamedTuple):
     """True per-step maxima of the three static routing capacities
     (pmax over the mesh).  Any value exceeding its configured capacity
     means records were dropped that step — grow and recompile, exactly
-    the max_dup / work_cap contract."""
+    the max_dup overflow contract."""
 
     route1_max: jax.Array  # () int32 vs route_cap1
     route2_max: jax.Array  # () int32 vs route_cap2
@@ -123,10 +122,9 @@ def make_routed3_train_step(
     )
 
     fkw = _fused_kw(runtime)
-    tile = fkw.get("tile", 32)
-    chunk = fkw.get("chunk", 128)
+    tile = fkw.get("tile", RuntimeConfig.tile_px)
+    chunk = fkw.get("chunk", RuntimeConfig.train_chunk)
     max_dup = fkw.get("max_dup", 2**18)
-    work_cap = fkw.get("work_cap", None)
     aa = fkw.get("aa", False)
     n_cam_ax = mesh.shape[CAMERA_AXIS]
     n_band = mesh.shape[TILE_AXIS]
@@ -153,7 +151,7 @@ def make_routed3_train_step(
     P = jax.sharding.PartitionSpec
     metric_specs = TrainMetrics(
         loss=P(), var_loc=P(SPLAT_AXIS), avg_grad_loc=P(SPLAT_AXIS),
-        num_dup=P(), num_work=P(),
+        num_dup=P(),
     )
     stats_specs = RouteStats(route1_max=P(), route2_max=P(), frame_max=P())
     ALL_AXES = (CAMERA_AXIS, TILE_AXIS, SPLAT_AXIS)
@@ -296,13 +294,9 @@ def make_routed3_train_step(
             radius=b3[:, _R_RX], rx=b3[:, _R_RX], ry=b3[:, _R_RY],
             valid=valid3,
         )
-        loss_sum, d_rows, _res8, num_dup, num_work = render_train_grads_rows(
+        loss_sum, d_rows, _res, num_dup = render_train_grads_rows(
             comps, width, band_h, truths, bgs,
-            tile=tile, chunk=chunk, max_dup=max_dup, work_cap=work_cap,
-            interpret=fkw.get("interpret", None),
-            mm_bf16=fkw.get("mm_bf16", False),
-            fast_exp=fkw.get("fast_exp", False),
-            mm_power=fkw.get("mm_power", False),
+            tile=tile, chunk=chunk, max_dup=max_dup,
         )
 
         # ---- 6. gradient return route (reverse both hops) ------------
@@ -338,7 +332,6 @@ def make_routed3_train_step(
         )
         loss_sum = jax.lax.psum(loss_sum, ALL_AXES) / n_band
         num_dup = jax.lax.pmax(num_dup, ALL_AXES)
-        num_work = jax.lax.pmax(num_work, ALL_AXES)
         stats = RouteStats(
             route1_max=jax.lax.pmax(mc1, ALL_AXES),
             route2_max=jax.lax.pmax(mc2, ALL_AXES),
@@ -366,7 +359,6 @@ def make_routed3_train_step(
             var_loc=var_loc / samples,
             avg_grad_loc=g_means,
             num_dup=num_dup,
-            num_work=num_work,
         )
         return new_shard, metrics, stats
 

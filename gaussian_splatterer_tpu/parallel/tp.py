@@ -66,7 +66,7 @@ def shard_truths_tp(mesh: Mesh, truth_tiles: jax.Array) -> jax.Array:
 def make_band_accumulate(width, height, sh_degree, fkw, band_h, frame_group):
     """Per-device frame loop for band-sharded rasterization: returns
     (params, active, capacity, truths, cams, bgs) -> SUMS over the local
-    frames of (grads, densify variance, loss, num_dup, num_work), with the
+    frames of (grads, densify variance, loss, num_dup), with the
     per-frame location gradients psum'd over TILE_AXIS BEFORE the
     nonlinear variance norm (exactness — module docstring).  Shared by the
     2-axis tp step and the 3-axis mesh3 step."""
@@ -83,9 +83,9 @@ def make_band_accumulate(width, height, sh_degree, fkw, band_h, frame_group):
         )
 
         def group_fn(carry, xg):
-            g_sum, var_sum, loss_sum, ndup, nwork = carry
+            g_sum, var_sum, loss_sum, ndup = carry
             truth_g, view_g, pv_g, pos_g, tx_g, ty_g, bg_g = xg
-            l_sum, g, d_means_b, _, nd, nw = render_train_grads_batch(
+            l_sum, g, d_means_b, _, nd = render_train_grads_batch(
                 *params, active, view_g, pv_g, pos_g, tx_g, ty_g,
                 width, height, truth_g, bg_g, sh_degree,
                 band=(y_off, band_h), frame_loc_grads=True, **fkw,
@@ -102,7 +102,6 @@ def make_band_accumulate(width, height, sh_degree, fkw, band_h, frame_group):
                 var_sum + var,
                 loss_sum + l_sum,
                 jnp.maximum(ndup, nd),
-                jnp.maximum(nwork, nw),
             ), None
 
         init = (
@@ -110,16 +109,12 @@ def make_band_accumulate(width, height, sh_degree, fkw, band_h, frame_group):
             jnp.zeros((capacity,), jnp.float32),
             jnp.float32(0.0),
             jnp.int32(0),
-            jnp.int32(0),
         )
         if n_local // group == 1:
             # single group: skip lax.scan (xs dynamic-slice copies the
             # whole local truth batch every step — trainer.py)
             return group_fn(init, jax.tree.map(lambda x: x[0], xs))[0]
-        (g_sum, var_sum, loss_sum, num_dup, num_work), _ = jax.lax.scan(
-            group_fn, init, xs
-        )
-        return g_sum, var_sum, loss_sum, num_dup, num_work
+        return jax.lax.scan(group_fn, init, xs)[0]
 
     return band_accumulate
 
@@ -135,31 +130,19 @@ def make_tp_train_step(
     """Sharded (model, truths, cams, lrs) -> (model', metrics) step over a
     ('camera', 'tile') mesh.
 
-    truths: (2F, T, 8, tile*tile) pre-tiled channel-major
+    truths: (2F, T, 4, tile*tile) pre-tiled channel-major
     (ops.raster_tiled.image_to_tiles_cm) with 2F divisible by the camera
     axis and the tile-ROW count divisible by the tile axis.  Model and
     learning rates are replicated.  Only the fused tiled path is supported
     on this axis (band rasterization is a property of the fused kernel)."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        max_frame_group,
-        render_train_grads_batch,
-    )
-
     fkw = _fused_kw(runtime)
-    tile = fkw.get("tile", 32)
+    tile = fkw.get("tile", RuntimeConfig.tile_px)
     n_cam_ax, n_band = mesh.shape[CAMERA_AXIS], mesh.shape[TILE_AXIS]
     ty_tiles = -(-height // tile)
     assert ty_tiles % n_band == 0, (
         f"tile rows ({ty_tiles}) must divide evenly into {n_band} bands"
     )
     band_h = (ty_tiles // n_band) * tile
-    frame_group = min(
-        frame_group,
-        max_frame_group(
-            width, height, tile, fkw.get("max_dup", 2**18),
-            fkw.get("chunk", 128),
-        ),
-    )
 
     local_accumulate = make_band_accumulate(
         width, height, sh_degree, fkw, band_h, frame_group
@@ -181,7 +164,7 @@ def make_tp_train_step(
     def step_sharded(model, truths, cams, bgs, lrs):
         params = (model.means, model.shs, model.scales, model.opacities,
                   model.rotations)
-        g_sum, var_sum, loss_sum, num_dup, num_work = local_accumulate(
+        g_sum, var_sum, loss_sum, num_dup = local_accumulate(
             params, model.active_mask(), model.capacity, truths, cams, bgs
         )
         # means grads + variance were already band-reduced inside the
@@ -192,7 +175,6 @@ def make_tp_train_step(
         # psum to n_band x the full mean
         loss_sum = jax.lax.psum(loss_sum, (CAMERA_AXIS, TILE_AXIS)) / n_band
         num_dup = jax.lax.pmax(num_dup, (CAMERA_AXIS, TILE_AXIS))
-        num_work = jax.lax.pmax(num_work, (CAMERA_AXIS, TILE_AXIS))
         samples = jnp.float32(truths.shape[0] * n_cam_ax)
         g_shs, g_scales, g_opac, g_rot = jax.tree.map(
             lambda g: g / samples, g_rest
@@ -211,7 +193,7 @@ def make_tp_train_step(
         )
         metrics = TrainMetrics(
             loss=loss_sum / samples, var_loc=var_sum / samples,
-            avg_grad_loc=g_means, num_dup=num_dup, num_work=num_work,
+            avg_grad_loc=g_means, num_dup=num_dup,
         )
         return new_model, metrics
 

@@ -66,7 +66,7 @@ def build_scene_np(seed=0, sh_degree=1):
 
 
 def tile_truths_np(truths):
-    """Channel-major (f, T, 8, P) truth tiles (image_to_tiles_cm in numpy
+    """Channel-major (f, T, 4, P) truth tiles (image_to_tiles_cm in numpy
     — this runner avoids jax before distributed init)."""
     import numpy as np
 
@@ -77,7 +77,7 @@ def tile_truths_np(truths):
         .transpose(0, 1, 3, 5, 2, 4)
         .reshape(f, ty * tx, c, TILE * TILE)
     )
-    out = np.zeros((f, ty * tx, 8, TILE * TILE), pm.dtype)
+    out = np.zeros((f, ty * tx, 4, TILE * TILE), pm.dtype)
     out[:, :, :c] = pm
     return out
 
@@ -101,6 +101,7 @@ def main():
 
     from gaussian_splatterer_tpu.config import Project, RuntimeConfig
     from gaussian_splatterer_tpu.models.splats import SplatModel
+    from gaussian_splatterer_tpu.ops import raster_tiled
     from gaussian_splatterer_tpu.parallel import init_distributed
     from gaussian_splatterer_tpu.parallel.dp import (
         CAMERA_AXIS,
@@ -109,6 +110,7 @@ def main():
     )
     from gaussian_splatterer_tpu.train.trainer import CameraBatch, LearningRates
 
+    raster_tiled.set_interpret(True)  # CPU processes: interpreted kernels
     n_global = init_distributed(
         coordinator_address=f"127.0.0.1:{port}",
         num_processes=nproc,

@@ -1,6 +1,6 @@
 """Unit tests for tile binning (ops/binning.py).
 
-Binning is the TPU replacement for the reference rasterizer's
+Binning replaces the reference rasterizer's
 duplicate-with-keys + radix-sort stage (reference call site
 src/Trainer.cu:334-360); unlike the reference it works on a fixed-capacity
 duplicate buffer, so its edge cases (wide AABBs, overflow) need direct
@@ -51,7 +51,7 @@ def test_wide_aabb_exact_decomposition(span_cols):
     cx = span_cols * tile / 2.0  # AABB cols [0, span_cols)
     cy = tile * 1.5  # rows [0, rows) when radius_y matches
     comps = _comps([cx], [cy], [radius])
-    bins = bin_splats(comps, width, height, tile, max_dup=4096, chunk=128)
+    bins = bin_splats(comps, width, height, tile, max_dup=4096)
 
     start = np.asarray(bins.tile_start)
     end = np.asarray(bins.tile_end)
@@ -78,7 +78,7 @@ def test_multi_splat_counts_and_depth_order():
         mx=[16.0, 8.0], my=[16.0, 8.0], radius=[15.0, 4.0],
         depth=np.array([5.0, 1.0], np.float32), n_pad=2,
     )
-    bins = bin_splats(comps, width, height, tile, max_dup=256, chunk=128)
+    bins = bin_splats(comps, width, height, tile, max_dup=256)
     start = np.asarray(bins.tile_start)
     end = np.asarray(bins.tile_end)
     counts = (end - start).reshape(8, 8)
@@ -102,7 +102,7 @@ def test_overflow_saturates_and_drops_tail():
         depth=np.array([1.0, 2.0, 3.0], np.float32),
     )
     # splats 1 and 2 cover all 64 tiles each; total = 1 + 64 + 64 = 129
-    bins = bin_splats(comps, width, height, tile, max_dup=64, chunk=128)
+    bins = bin_splats(comps, width, height, tile, max_dup=64)
     assert int(bins.num_dup) == 129
     # only the first 64 duplicates survive: splat 0 then 63 tiles of splat 1
     start = np.asarray(bins.tile_start)

@@ -59,6 +59,7 @@ def test_two_process_dp_matches_single_controller(tmp_path):
     import jax
     import jax.numpy as jnp
 
+    from gaussian_splatterer_tpu.config import RuntimeConfig
     from gaussian_splatterer_tpu.models.splats import SplatModel
     from gaussian_splatterer_tpu.train.trainer import (
         CameraBatch,
@@ -91,7 +92,8 @@ def test_two_process_dp_matches_single_controller(tmp_path):
     )
     step = make_train_step(
         RES, RES, 1, renderer="tiled", fused=True,
-        fused_opts=dict(tile=TILE, max_dup=2**12, mm_bf16=True),
+        fused_opts=dict(tile=TILE, max_dup=2**12,
+                        chunk=RuntimeConfig().train_chunk),
     )
     new_model, metrics = step(model, truth_tiles, cams, lrs)
     ref_loss = float(metrics.loss)

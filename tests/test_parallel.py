@@ -65,7 +65,7 @@ def test_dp_matches_single_device():
 
 
 def test_dp_tiled_renderer_runs():
-    """Sharded step with the Pallas (interpret-mode) tiled renderer."""
+    """Sharded step with the tiled renderer (interpreted kernels)."""
     from gaussian_splatterer_tpu.ops.raster_tiled import render_tiled
 
     model, cams, truths = build_scene(n_splats=12, cap=32, n_cams=4)
@@ -152,7 +152,7 @@ def test_dp_fused_matches_single_device(sh_degree):
     single = make_train_step(
         res, res, sh_degree, renderer="tiled", fused=True,
         fused_opts=dict(tile=tile, max_dup=2**12,
-                        mm_bf16=runtime.train_mm_bf16),
+                        chunk=runtime.train_chunk),
     )
     m1, met1 = single(model, truth_tiles, cams, lrs)
 
@@ -193,7 +193,7 @@ def test_fsdp_fused_matches_single_device(sh_degree):
     single = make_train_step(
         res, res, sh_degree, renderer="tiled", fused=True,
         fused_opts=dict(tile=tile, max_dup=2**12,
-                        mm_bf16=runtime.train_mm_bf16),
+                        chunk=runtime.train_chunk),
     )
     m1, met1 = single(model, truth_tiles, cams, lrs)
 
@@ -237,7 +237,7 @@ def test_tp_band_matches_single_device(mesh_shape):
     single = make_train_step(
         res, res, 1, renderer="tiled", fused=True,
         fused_opts=dict(tile=tile, max_dup=2**12,
-                        mm_bf16=runtime.train_mm_bf16),
+                        chunk=runtime.train_chunk),
     )
     m1, met1 = single(model, truth_tiles, cams, lrs)
 
@@ -278,7 +278,7 @@ def test_3d_mesh_matches_single_device():
     single = make_train_step(
         res, res, 1, renderer="tiled", fused=True,
         fused_opts=dict(tile=tile, max_dup=2**12,
-                        mm_bf16=runtime.train_mm_bf16),
+                        chunk=runtime.train_chunk),
     )
     m1, met1 = single(model, truth_tiles, cams, lrs)
 
@@ -325,7 +325,7 @@ def test_routed3_matches_single_device():
     single = make_train_step(
         res, res, 1, renderer="tiled", fused=True,
         fused_opts=dict(tile=tile, max_dup=2**12,
-                        mm_bf16=runtime.train_mm_bf16),
+                        chunk=runtime.train_chunk),
     )
     m1, met1 = single(model, truth_tiles, cams, lrs)
 
@@ -410,7 +410,7 @@ def test_sharded_capture_matches_direct_render():
 
 def test_routed3_overflow_reported():
     """Undersized route buckets must be REPORTED via RouteStats, never
-    silently corrupt (the max_dup/work_cap contract)."""
+    silently corrupt (the max_dup overflow contract)."""
     from gaussian_splatterer_tpu.config import RuntimeConfig
     from gaussian_splatterer_tpu.parallel.mesh3 import (
         make_3d_mesh,

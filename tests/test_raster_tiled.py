@@ -1,4 +1,4 @@
-"""Tiled Pallas rasterizer vs oracle: forward allclose + backward gradients.
+"""Tiled rasterizer (Triton kernels, interpreted) vs oracle: forward allclose + backward gradients.
 
 BASELINE config 1 analog: small splat sets, small images, CPU (interpret
 mode), exact numerics against the oracle with tile-granular culling enabled
@@ -225,7 +225,7 @@ def test_fused_train_grads_match_vjp_path():
     g_ref = pull(residual)[0]
     loss_ref = jnp.mean(jnp.square(residual))
 
-    loss_f, g_fused, res8 = render_train_grads(
+    loss_f, g_fused, res4 = render_train_grads(
         *params, active, view, pv, pos, tx, ty, W, H,
         image_to_tiles_cm(truth, TILE), bg, 1,
         tile=TILE, max_dup=2**12, interpret=True,
@@ -233,7 +233,7 @@ def test_fused_train_grads_match_vjp_path():
 
     np.testing.assert_allclose(float(loss_f), float(loss_ref), rtol=1e-5)
     np.testing.assert_allclose(
-        np.asarray(res8[:, 0:3, :]),
+        np.asarray(res4[:, 0:3, :]),
         np.asarray(residual).transpose(0, 2, 1),
         atol=1e-5,
     )
@@ -277,7 +277,7 @@ def test_batched_train_grads_match_per_frame():
     truths = jnp.asarray(rng.uniform(0, 1, (3, H, W, 3)).astype(np.float32))
     truth_tiles = jax.vmap(lambda im: image_to_tiles_cm(im, TILE))(truths)
 
-    loss_b, g_b, var_b, res_b, num_dup, num_work = render_train_grads_batch(
+    loss_b, g_b, var_b, res_b, num_dup = render_train_grads_batch(
         *params, active, views, pvs, poss, txs, tys, W, H,
         truth_tiles, bgs, 1, tile=TILE, max_dup=2**12, interpret=True,
     )
@@ -319,11 +319,10 @@ def test_batched_train_grads_match_per_frame():
 
 @pytest.mark.slow  # deselected by default (pyproject addopts); run with -m slow
 def test_fused_train_grads_mid_scale():
-    """Mid-scale parity (5k splats, 256^2, tile 32): every tile covers
-    multiple 128-splat chunks and most feature blocks are shared across
-    tile boundaries, exercising work-list construction, slab segment-sum
-    and the packed-cummax binning (binning.py) at depths the 64^2 toy
-    cases never reach.  VERDICT r1 'weak #7'."""
+    """Mid-scale parity (5k splats, 256^2, tile 32): every tile's segment
+    spans many chunks, exercising the per-tile chunk loop, the direct
+    gradient-column writes and the packed-cummax binning (binning.py) at
+    depths the 64^2 toy cases never reach."""
     from gaussian_splatterer_tpu.ops.raster_tiled import (
         image_to_tiles,
         image_to_tiles_cm,
@@ -361,7 +360,7 @@ def test_fused_train_grads_mid_scale():
     g_ref = pull(residual)[0]
     loss_ref = jnp.mean(jnp.square(residual))
 
-    loss_f, g_fused, res8 = render_train_grads(
+    loss_f, g_fused, res4 = render_train_grads(
         *params, active, view, pv, pos, tx, ty, w, h,
         image_to_tiles_cm(truth, tile), bg, 1,
         tile=tile, max_dup=max_dup, interpret=True,
@@ -374,7 +373,7 @@ def test_fused_train_grads_mid_scale():
     proj = project_splat_components(
         *params, active, view, pv, pos, tx, ty, w, h, 1, 1.0
     )
-    bins = bin_splats(proj, w, h, tile, max_dup, 128)
+    bins = bin_splats(proj, w, h, tile, max_dup)
     per_tile = np.asarray(bins.tile_end - bins.tile_start)
     assert int(per_tile.max()) > 256, "scene too shallow for a mid-scale case"
 
@@ -383,7 +382,7 @@ def test_fused_train_grads_mid_scale():
     # the T_EPS early-termination knife edge, where one-ulp cumsum rounding
     # differences flip the last kept splat between the two paths
     np.testing.assert_allclose(
-        np.asarray(res8[:, 0:3, :]),
+        np.asarray(res4[:, 0:3, :]),
         np.asarray(residual).transpose(0, 2, 1),
         atol=2e-3,
     )
@@ -405,53 +404,10 @@ def test_tile_cm_roundtrip():
     rng = np.random.default_rng(2)
     img = jnp.asarray(rng.uniform(0, 1, (64, 96, 3)).astype(np.float32))
     tiles = image_to_tiles_cm(img, 16)
-    assert tiles.shape == (4 * 6, 8, 256)
+    assert tiles.shape == (4 * 6, 4, 256)
     assert float(jnp.abs(tiles[:, 3:, :]).max()) == 0.0
     back = tiles_cm_to_image(tiles, 96, 64, 16)
     np.testing.assert_array_equal(np.asarray(back), np.asarray(img))
-
-
-def test_work_cap_budget_matches_and_detects_overflow():
-    """A work_cap budget >= the true item count gives IDENTICAL results to
-    the uncapped list (pads are pure tail slack); a too-small budget drops
-    trailing items and must report num_work > cap so the trainer's
-    auto-grow machinery (Trainer.maybe_grow_dup_buffer) can recover."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        image_to_tiles_cm,
-        render_train_grads_batch,
-    )
-
-    params = random_splats(40, 31)[:5]
-    active = random_splats(40, 31)[5]
-    rng = np.random.default_rng(5)
-    view, pv, pos, tx, ty = cam_args()
-    views, pvs, poss = view[None], pv[None], jnp.asarray(pos)[None]
-    txs = jnp.asarray(tx, jnp.float32)[None]
-    tys = jnp.asarray(ty, jnp.float32)[None]
-    bgs = jnp.zeros((1, 3), jnp.float32)
-    truths = jnp.asarray(rng.uniform(0, 1, (1, H, W, 3)).astype(np.float32))
-    truth_tiles = jax.vmap(lambda im: image_to_tiles_cm(im, TILE))(truths)
-
-    def run(cap):
-        return render_train_grads_batch(
-            *params, active, views, pvs, poss, txs, tys, W, H,
-            truth_tiles, bgs, 1, tile=TILE, max_dup=2**12, interpret=True,
-            work_cap=cap,
-        )
-
-    l0, g0, v0, r0, nd0, nw0 = run(None)
-    n_items = int(nw0)
-    assert n_items > 2  # scene produces a non-trivial work list
-
-    l1, g1, v1, r1, nd1, nw1 = run(n_items)  # exact budget
-    assert int(nw1) == n_items
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(l0), rtol=1e-6)
-    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g0)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-7)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(r0), atol=1e-7)
-
-    _, _, _, _, _, nw2 = run(n_items // 2)  # deliberate overflow
-    assert int(nw2) == n_items > n_items // 2  # true count still reported
 
 
 def test_mip_antialias_option():
@@ -488,48 +444,10 @@ def test_mip_antialias_option():
     assert float(jnp.max(on)) < 0.5 * max(float(jnp.max(off)), 1e-6)
 
 
-def test_fast_exp_close_to_exact():
-    """The fused kernel's polynomial exp2 path (train_fast_exp) matches the
-    exact-exp path to ~1e-4 on images/gradients — well below the training
-    path's MC-noise and bf16-cumsum tolerances."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        image_to_tiles_cm,
-        render_train_grads_batch,
-    )
-
-    params = random_splats(60, 13)[:5]
-    active = random_splats(60, 13)[5]
-    rng = np.random.default_rng(2)
-    view, pv, pos, tx, ty = cam_args()
-    views, pvs, poss = view[None], pv[None], jnp.asarray(pos)[None]
-    txs = jnp.asarray(tx, jnp.float32)[None]
-    tys = jnp.asarray(ty, jnp.float32)[None]
-    bgs = jnp.asarray([[0.2, 0.4, 0.1]], jnp.float32)
-    truths = jnp.asarray(rng.uniform(0, 1, (1, H, W, 3)).astype(np.float32))
-    tt = jax.vmap(lambda im: image_to_tiles_cm(im, TILE))(truths)
-
-    def run(fast):
-        return render_train_grads_batch(
-            *params, active, views, pvs, poss, txs, tys, W, H, tt, bgs, 1,
-            tile=TILE, max_dup=2**13, interpret=True, fast_exp=fast,
-        )
-
-    l0, g0, _, r0, _, _ = run(False)
-    l1, g1, _, r1, _, _ = run(True)
-    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(r0), atol=2e-4)
-    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g0)):
-        scale = max(1e-3, float(jnp.max(jnp.abs(b))))
-        np.testing.assert_allclose(
-            np.asarray(a) / scale, np.asarray(b) / scale, atol=5e-4
-        )
-
-
 def test_all_train_options_compose():
-    """band + work_cap + mip AA + fast_exp together still match the
-    plain-option baseline within fast-exp tolerance (option interactions
-    guard: each knob is tested alone elsewhere; mm_power rides along on
-    the fast side too)."""
+    """band + mip AA + a small chunk together: the two half-image bands'
+    gradient sums equal the full-image run with the default chunk (option
+    interactions guard: each knob is tested alone elsewhere)."""
     from gaussian_splatterer_tpu.ops.raster_tiled import (
         image_to_tiles_cm,
         render_train_grads_batch,
@@ -557,55 +475,19 @@ def test_all_train_options_compose():
             interpret=True, band=(jnp.float32(y0), rows), **kw,
         )
 
-    opts = dict(aa=True, fast_exp=False, work_cap=None)
-    base = [run_banded(y0, H2 // 2, **opts) for y0 in (0.0, H2 / 2)]
-    opts2 = dict(aa=True, fast_exp=True, work_cap=512, mm_power=True)
-    fast = [run_banded(y0, H2 // 2, **opts2) for y0 in (0.0, H2 / 2)]
-    for b, f in zip(base, fast):
-        assert int(f[5]) <= 512, "cap must hold for the test scene"
-        for a, c in zip(jax.tree.leaves(b[1]), jax.tree.leaves(f[1])):
-            scale = max(1e-3, float(jnp.max(jnp.abs(a))))
-            np.testing.assert_allclose(
-                np.asarray(c) / scale, np.asarray(a) / scale, atol=5e-4
-            )
-
-
-def test_mm_power_close_to_exact():
-    """The fused kernel's MXU-basis exponent path (train_mm_power) matches
-    the exact two-difference VPU path.  In interpret mode the matmul is
-    exact f32, so the only deviation is the polynomial-expansion rounding
-    (~|coef| * 2^-23 in the exponent) — asserted well below the training
-    path's MC-noise tolerance."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        image_to_tiles_cm,
-        render_train_grads_batch,
+    full = render_train_grads_batch(
+        *params, active, views, pvs, poss, txs, tys, W2, H2, tt_full, bgs, 1,
+        tile=TILE, max_dup=2**12, interpret=True, aa=True,
     )
-
-    params = random_splats(60, 13)[:5]
-    active = random_splats(60, 13)[5]
-    rng = np.random.default_rng(2)
-    view, pv, pos, tx, ty = cam_args()
-    views, pvs, poss = view[None], pv[None], jnp.asarray(pos)[None]
-    txs = jnp.asarray(tx, jnp.float32)[None]
-    tys = jnp.asarray(ty, jnp.float32)[None]
-    bgs = jnp.asarray([[0.2, 0.4, 0.1]], jnp.float32)
-    truths = jnp.asarray(rng.uniform(0, 1, (1, H, W, 3)).astype(np.float32))
-    tt = jax.vmap(lambda im: image_to_tiles_cm(im, TILE))(truths)
-
-    def run(mm):
-        return render_train_grads_batch(
-            *params, active, views, pvs, poss, txs, tys, W, H, tt, bgs, 1,
-            tile=TILE, max_dup=2**13, interpret=True, mm_power=mm,
-        )
-
-    l0, g0, _, r0, _, _ = run(False)
-    l1, g1, _, r1, _, _ = run(True)
-    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(r0), atol=2e-4)
-    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g0)):
-        scale = max(1e-3, float(jnp.max(jnp.abs(b))))
+    bands = [run_banded(y0, H2 // 2, aa=True, chunk=8) for y0 in (0.0, H2 / 2)]
+    summed = jax.tree.map(lambda a, b: a + b, bands[0][1], bands[1][1])
+    np.testing.assert_allclose(
+        float(bands[0][0] + bands[1][0]) / 2, float(full[0]), rtol=1e-5
+    )
+    for a, c in zip(jax.tree.leaves(full[1]), jax.tree.leaves(summed)):
+        scale = max(1e-3, float(jnp.max(jnp.abs(a))))
         np.testing.assert_allclose(
-            np.asarray(a) / scale, np.asarray(b) / scale, atol=5e-4
+            np.asarray(c) / scale, np.asarray(a) / scale, atol=5e-5
         )
 
 
@@ -632,7 +514,7 @@ def test_mip_aa_zero_scale_gradients_finite():
     truths = jnp.asarray(rng.uniform(0, 1, (1, H, W, 3)).astype(np.float32))
     tt = jax.vmap(lambda im: image_to_tiles_cm(im, TILE))(truths)
 
-    loss, grads, var, _, _, _ = render_train_grads_batch(
+    loss, grads, var, _, _ = render_train_grads_batch(
         *params, active, views, pvs, poss, txs, tys, W, H, tt, bgs, 1,
         tile=TILE, max_dup=2**12, interpret=True, aa=True,
     )
@@ -693,7 +575,7 @@ def test_fused_path_random_config_fuzz(seed):
     tt = image_to_tiles_cm(truth, tile)
     bg = jnp.asarray(rng.uniform(0, 1, 3).astype(np.float32))
 
-    loss_f, grads_f, _, _, nd, _ = render_train_grads_batch(
+    loss_f, grads_f, _, _, nd = render_train_grads_batch(
         *params, active, view[None], pv[None], jnp.asarray(cam.location)[None],
         jnp.asarray(tx, jnp.float32)[None], jnp.asarray(ty, jnp.float32)[None],
         res, res, tt[None], bg[None], degree,
@@ -721,209 +603,3 @@ def test_fused_path_random_config_fuzz(seed):
             err_msg=f"config tile={tile} chunk={chunk} max_dup={max_dup} "
                     f"degree={degree} n={n}",
         )
-
-
-def test_window_worklist_multiwindow_tiles():
-    """Window-scheme edge cases: a scene dense enough that tiles span 3+
-    windows at a tiny chunk (unaligned starts crossing several aligned
-    block boundaries) plus empty background tiles, checked against the
-    image-space vjp reference.  Guards the dynamic-roll window assembly
-    and the lo/hi slab split (ops/raster_tiled._assemble_window /
-    _emit_window_slabs)."""
-    from gaussian_splatterer_tpu.ops.binning import make_window_worklist
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        image_to_tiles,
-        image_to_tiles_cm,
-        render_tiled_tiles,
-        render_train_grads,
-    )
-
-    # big splats -> heavy overlap in center tiles, none at the borders
-    rng = np.random.default_rng(11)
-    n, cap = 60, 64
-    means = np.zeros((cap, 3), np.float32)
-    means[:n] = rng.uniform(0.1, 1.6, (n, 3))  # off-center: corner tiles empty
-    shs = np.zeros((cap, 4, 3), np.float32)
-    shs[:n] = rng.normal(0, 0.5, (n, 4, 3))
-    scales = np.zeros((cap, 3), np.float32)
-    scales[:n] = rng.uniform(0.2, 0.7, (n, 3))
-    opac = np.zeros((cap,), np.float32)
-    opac[:n] = rng.uniform(0.3, 1.0, n)
-    rot = np.zeros((cap, 4), np.float32)
-    rot[:, 0] = 1.0
-    rot[:n] = rng.normal(0, 1, (n, 4))
-    params = tuple(map(jnp.asarray, (means, shs, scales, opac, rot)))
-    active = jnp.asarray(np.arange(cap) < n)
-    view, pv, pos, tx, ty = cam_args(dist=6.0)
-    bg = jnp.asarray([0.2, 0.5, 0.1], jnp.float32)
-    truth = jnp.asarray(rng.uniform(0, 1, (H, W, 3)).astype(np.float32))
-
-    chunk, max_dup = 16, 2**10
-
-    def render_fn(p):
-        return render_tiled_tiles(
-            *p, active, view, pv, pos, tx, ty, W, H, bg, 1, 1.0,
-            tile=TILE, chunk=chunk, max_dup=max_dup, interpret=True,
-        )
-
-    img_tiles, pull = jax.vjp(render_fn, params)
-    residual = image_to_tiles(truth, TILE) - img_tiles
-    g_ref = pull(residual)[0]
-    loss_ref = jnp.mean(jnp.square(residual))
-
-    loss_f, g_fused, _ = render_train_grads(
-        *params, active, view, pv, pos, tx, ty, W, H,
-        image_to_tiles_cm(truth, TILE), bg, 1,
-        tile=TILE, chunk=chunk, max_dup=max_dup, interpret=True,
-    )
-
-    np.testing.assert_allclose(float(loss_f), float(loss_ref), rtol=1e-5)
-    for name, a, b in zip(
-        ["means", "shs", "scales", "opacities", "rotations"], g_fused, g_ref
-    ):
-        scale = max(1e-3, float(jnp.max(jnp.abs(b))))
-        np.testing.assert_allclose(
-            np.asarray(a) / scale, np.asarray(b) / scale, atol=5e-5,
-            err_msg=f"window gradient mismatch: {name}",
-        )
-
-    # structural assertions: the scene really exercises the edge cases
-    from gaussian_splatterer_tpu.ops.binning import bin_splats
-    from gaussian_splatterer_tpu.ops.transforms import project_splat_components
-
-    comps = project_splat_components(
-        *params, active, view, pv, pos, tx, ty, W, H, 1, 1.0
-    )
-    bins = bin_splats(comps, W, H, TILE, max_dup, chunk)
-    seg = np.asarray(bins.tile_end) - np.asarray(bins.tile_start)
-    assert (seg == 0).any(), "need empty tiles"
-    assert (seg > 2 * chunk).any(), "need tiles spanning 3+ windows"
-    assert (np.asarray(bins.tile_start) % chunk != 0).any(), (
-        "need unaligned window starts"
-    )
-    w2 = make_window_worklist(
-        jnp.asarray(bins.tile_start), jnp.asarray(bins.tile_end),
-        (W // TILE) * (H // TILE), max_dup, chunk,
-    )
-    # every multi-window tile contributes 2*ceil(seg/chunk) items (pass-1
-    # + pass-2 per window); single-window tiles — including empty ones,
-    # which still emit their residual — are one fused item
-    windows = np.ceil(seg / chunk).astype(int)
-    expected = int(np.sum(np.where(windows > 1, 2 * windows, 1)))
-    assert int(w2.num_work) == expected
-    assert int(w2.num_work) > (W // TILE) * (H // TILE)
-
-
-def test_cumsum_frames_matches_jnp(monkeypatch):
-    """The Pallas carry-cumsum (per-frame, single sequential pass) must
-    match jnp.cumsum: same f32 adds, only association differs.  Covers the
-    128-multiple block path and the tiny-shape jnp fallback."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import cumsum_frames
-
-    monkeypatch.setenv("GSPLAT_PALLAS_CUMSUM", "1")
-    rng = np.random.default_rng(7)
-    for k, f, d in [(9, 3, 512), (9, 1, 384), (2, 2, 1024), (9, 2, 96)]:
-        x = jnp.asarray(rng.normal(size=(k, f, d)).astype(np.float32) * 100)
-        got = np.asarray(cumsum_frames(x, interpret=True))
-        ref = np.asarray(jnp.cumsum(x, axis=2))
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-3)
-
-
-def test_train_grads_with_pallas_cumsum(monkeypatch):
-    """End-to-end fused train grads with the Pallas cumsum enabled must
-    match the default XLA-cumsum path at reassociation-noise tolerance."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        image_to_tiles_cm,
-        render_train_grads_batch,
-    )
-
-    rng = np.random.default_rng(3)
-    n, f, w, h = 96, 2, 64, 64
-    means = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    shs = jnp.asarray(rng.normal(size=(n, 4, 3)).astype(np.float32) * 0.2)
-    scales = jnp.asarray(rng.uniform(0.05, 0.3, size=(n, 3)).astype(np.float32))
-    opac = jnp.asarray(rng.uniform(0.2, 0.9, size=(n,)).astype(np.float32))
-    rot = jnp.asarray(rng.normal(size=(n, 4)).astype(np.float32))
-    active = jnp.ones((n,), bool)
-    cams = [
-        Camera(np.array([0.0, 0.0, 4.0], np.float32), np.zeros(3, np.float32), 45.0),
-        Camera(np.array([3.0, 1.0, 2.0], np.float32), np.zeros(3, np.float32), 45.0),
-    ]
-    views = jnp.stack([jnp.asarray(c.get_view()) for c in cams])
-    pvs = jnp.stack([jnp.asarray(c.get_proj_view(1.0)) for c in cams])
-    poss = jnp.stack([jnp.asarray(c.location, dtype=jnp.float32) for c in cams])
-    tfx = jnp.asarray([c.tan_fov(w, h)[0] for c in cams], jnp.float32)
-    tfy = jnp.asarray([c.tan_fov(w, h)[1] for c in cams], jnp.float32)
-    truth = jnp.asarray(rng.uniform(size=(f, h, w, 3)).astype(np.float32))
-    truth_tiles = jnp.stack([image_to_tiles_cm(truth[i], 32) for i in range(f)])
-    bgs = jnp.zeros((f, 3), jnp.float32)
-
-    def run():
-        return render_train_grads_batch(
-            means, shs, scales, opac, rot, active,
-            views, pvs, poss, tfx, tfy, w, h, truth_tiles, bgs, 1,
-            tile=32, chunk=128, max_dup=512, interpret=True,
-        )
-
-    loss0, grads0, var0, _, _, _ = run()
-    monkeypatch.setenv("GSPLAT_PALLAS_CUMSUM", "1")
-    loss1, grads1, var1, _, _, _ = run()
-    np.testing.assert_allclose(float(loss0), float(loss1), rtol=1e-6)
-    # the per-splat segment sums subtract two large running prefixes, so
-    # association-order noise lands as ABSOLUTE error ~eps * |prefix| on
-    # every element (the measured F=8-vs-1 class in
-    # test_parallel_realistic): tolerance is absolute, scaled to the
-    # largest gradient (a proxy for prefix magnitude at this scene size)
-    for g0, g1 in zip(grads0, grads1):
-        a0, a1 = np.asarray(g0), np.asarray(g1)
-        atol = 2e-4 * max(1.0, float(np.abs(a0).max()))
-        np.testing.assert_allclose(a0, a1, rtol=0, atol=atol)
-    v0, v1 = np.asarray(var0), np.asarray(var1)
-    np.testing.assert_allclose(
-        v0, v1, rtol=0, atol=2e-4 * max(1.0, float(np.abs(v0).max()))
-    )
-
-
-def test_train_grads_bf16_slabs(monkeypatch):
-    """GSPLAT_BF16_SLABS=1 stores gradient slabs in bf16 (f32 segment
-    accumulation): per-element quantization only, ~2^-9 relative per
-    duplicate contribution."""
-    from gaussian_splatterer_tpu.ops.raster_tiled import (
-        image_to_tiles_cm,
-        render_train_grads_batch,
-    )
-
-    rng = np.random.default_rng(5)
-    n, f, w, h = 64, 1, 64, 64
-    means = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    shs = jnp.asarray(rng.normal(size=(n, 4, 3)).astype(np.float32) * 0.2)
-    scales = jnp.asarray(rng.uniform(0.05, 0.3, size=(n, 3)).astype(np.float32))
-    opac = jnp.asarray(rng.uniform(0.2, 0.9, size=(n,)).astype(np.float32))
-    rot = jnp.asarray(rng.normal(size=(n, 4)).astype(np.float32))
-    active = jnp.ones((n,), bool)
-    cam = Camera(np.array([0.0, 0.0, 4.0], np.float32), np.zeros(3, np.float32), 45.0)
-    views = jnp.asarray(cam.get_view())[None]
-    pvs = jnp.asarray(cam.get_proj_view(1.0))[None]
-    poss = jnp.asarray(cam.location, dtype=jnp.float32)[None]
-    tfx = jnp.asarray([cam.tan_fov(w, h)[0]], jnp.float32)
-    tfy = jnp.asarray([cam.tan_fov(w, h)[1]], jnp.float32)
-    truth = jnp.asarray(rng.uniform(size=(f, h, w, 3)).astype(np.float32))
-    truth_tiles = jnp.stack([image_to_tiles_cm(truth[i], 32) for i in range(f)])
-    bgs = jnp.zeros((f, 3), jnp.float32)
-
-    def run():
-        return render_train_grads_batch(
-            means, shs, scales, opac, rot, active,
-            views, pvs, poss, tfx, tfy, w, h, truth_tiles, bgs, 1,
-            tile=32, chunk=128, max_dup=512, interpret=True,
-        )
-
-    loss0, grads0, _, _, _, _ = run()
-    monkeypatch.setenv("GSPLAT_BF16_SLABS", "1")
-    loss1, grads1, _, _, _, _ = run()
-    np.testing.assert_allclose(float(loss0), float(loss1), rtol=1e-6)
-    for g0, g1 in zip(grads0, grads1):
-        a0, a1 = np.asarray(g0), np.asarray(g1)
-        # bf16 per-element quantization of the slab contributions
-        atol = 6e-3 * max(1.0, float(np.abs(a0).max()))
-        np.testing.assert_allclose(a0, a1, rtol=0, atol=atol)

@@ -153,7 +153,7 @@ def icosphere_like(n=12):
 
 
 def test_shared_origin_intersector_matches_component_mt():
-    """The primary pass's MXU matmul Möller-Trumbore (_intersect_shared)
+    """The primary pass's matmul Möller-Trumbore (_intersect_shared)
     agrees with the component-form brute force on hits, indices, and
     distances (algebraically equal formulas; only f32 rounding differs)."""
     import jax
@@ -215,7 +215,7 @@ def test_culled_matches_bruteforce():
 
 
 def test_mxu_general_intersector_matches_component_mt():
-    """The bounce pass's general-origin MXU matmul Möller-Trumbore
+    """The bounce pass's general-origin matmul Möller-Trumbore
     (_intersect_mxu_general) agrees with the component-form brute force on
     hits, indices, and distances for SCATTERED ray origins (algebraically
     equal triple-product formulas; only f32 rounding differs)."""
@@ -263,7 +263,7 @@ def test_mxu_general_intersector_matches_component_mt():
 
 
 def test_mxu_bounce_render_statistically_matches_component():
-    """Full renders with the MXU bounce intersector on vs off converge to
+    """Full renders with the matmul bounce intersector on vs off converge to
     the same image (same RNG stream; only f32 rounding and borderline hit
     flips differ, which MC noise dominates)."""
     mesh = icosphere_like(12)
@@ -364,45 +364,3 @@ def test_roulette_unbiased_and_off_by_default():
     # per-sample clamp is skipped under roulette so the boost stays
     # unbiased); the sample AVERAGE stays near the exact <= 1 image
     assert float(np.max(np.asarray(on))) <= 1.1
-
-
-def test_fused_mt_kernel_matches_xla_form():
-    """_intersect_mxu_fused (Pallas, in-VMEM plane) == _intersect_mxu_general
-    (XLA dot + epilogue) on random rays over a random soup — same math,
-    f32-rounding-level agreement, identical winner indices away from ties."""
-    import jax.numpy as jnp
-
-    from gaussian_splatterer_tpu.rt import tracer as tr
-
-    rng = np.random.default_rng(3)
-    n_tri = 40
-    host = RtxHost(tri_chunk=16, ray_chunk=256)
-    verts = rng.uniform(-2, 2, (3 * n_tri, 3)).astype(np.float32)
-    tris = np.arange(3 * n_tri, dtype=np.int32).reshape(n_tri, 3)
-    uv = rng.uniform(0, 1, (n_tri, 3, 2)).astype(np.float32)
-    from gaussian_splatterer_tpu.io.obj import TriangleMesh
-
-    host.load_model(TriangleMesh(verts, tris, uv), mt_kernel=True)
-    assert "validf" in host._tris
-
-    r = 128
-    o = rng.uniform(-4, 4, (r, 3)).astype(np.float32)
-    d = rng.normal(size=(r, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    args = (jnp.asarray(o[:, 0]), jnp.asarray(o[:, 1]), jnp.asarray(o[:, 2]),
-            jnp.asarray(d[:, 0]), jnp.asarray(d[:, 1]), jnp.asarray(d[:, 2]))
-    t_f, i_f, u_f, v_f = tr._intersect_mxu_fused(*args, host._tris, 16)
-    t_x, i_x, u_x, v_x = tr._intersect_mxu_general(*args, host._tris, 16)
-    t_f, t_x = np.asarray(t_f), np.asarray(t_x)
-    hit = np.isfinite(t_x)
-    assert (np.isfinite(t_f) == hit).all()
-    np.testing.assert_allclose(t_f[hit], t_x[hit], rtol=1e-5, atol=1e-6)
-    same = np.asarray(i_f)[hit] == np.asarray(i_x)[hit]
-    # winner indices agree except possibly at exact rounding ties
-    assert same.mean() > 0.95
-    np.testing.assert_allclose(np.asarray(u_f)[hit][same],
-                               np.asarray(u_x)[hit][same], rtol=1e-4,
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(v_f)[hit][same],
-                               np.asarray(v_x)[hit][same], rtol=1e-4,
-                               atol=1e-5)

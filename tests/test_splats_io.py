@@ -307,7 +307,7 @@ def test_viewer_shader_math_matches_projection():
     import jax.numpy as jnp
 
     """The HTML viewer's vertex-shader math (numpy-simulated) must agree
-    with the trusted TPU projection: same near-cull decisions, same
+    with the trusted JAX projection: same near-cull decisions, same
     dilated 2D covariance (up to the y-axis orientation), centered splat
     lands at NDC ~ 0."""
     from gaussian_splatterer_tpu.models.camera import Camera
